@@ -6,8 +6,8 @@ Reproduces the configuration of the reference's recorded stats/
 A_x=0.5 / A_z=0.55 / offset [0, 0.4, 0.45] / period 10s, true disturbance
 f_ext=[-60, 20, -40] N with a random walk, wrench-hypothesis batch with
 sigma=20 / resample sigma=1 — but fully device-resident: the plant, the B
-SQP solves (fused Pallas kernel on TPU), consensus, and resampling run as
-one lax.scan.  Prints a stats summary comparable with BASELINE.md
+SQP solves (the production solver solvers/select.py picks), consensus,
+and resampling run as one lax.scan.  Prints a stats summary comparable with BASELINE.md
 (reference tracking error mean 0.125-0.192 m, solve 5.3-9.0 ms).
 
 Usage: python examples/fig8_closed_loop.py [batch_size] [num_ticks]
@@ -31,15 +31,15 @@ import numpy as np
 
 
 def main():
-    from indy7_mpc_tpu.utils.cache import enable_cache
+    from indy7_mpc.utils.cache import enable_cache
 
     enable_cache()
-    from indy7_mpc_tpu.config import (
+    from indy7_mpc.config import (
         CostConfig, MPCConfig, PERTURBED_PLANT, SampleConfig, SQPConfig,
     )
-    from indy7_mpc_tpu.models import indy7
-    from indy7_mpc_tpu.mpc import reference, run_sampled_mpc
-    from indy7_mpc_tpu.runtime.stats import RunRecorder
+    from indy7_mpc.models import indy7
+    from indy7_mpc.mpc import reference, run_sampled_mpc
+    from indy7_mpc.runtime.stats import RunRecorder
 
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     perturbed = "--perturbed" in sys.argv[1:]
@@ -87,7 +87,7 @@ def main():
 
     te = np.asarray(trace.tracking_error)
     per_tick_us = wall / ticks * 1e6
-    rec = RunRecorder(out_dir="stats_tpu")
+    rec = RunRecorder(out_dir=os.path.join("chiprun_out", "fig8"))
     rec.record_trace(trace, dt, per_tick_us)
     stem = rec.save()
     summary = {

@@ -29,15 +29,15 @@ def main():
     ap.add_argument("--compare", action="store_true")
     args = ap.parse_args()
 
-    from indy7_mpc_tpu.utils.cache import enable_cache
+    from indy7_mpc.utils.cache import enable_cache
 
     enable_cache()
-    from indy7_mpc_tpu.config import (
+    from indy7_mpc.config import (
         CostConfig, MPCConfig, SampleConfig, SQPConfig,
     )
-    from indy7_mpc_tpu.dynamics import ee_pos
-    from indy7_mpc_tpu.models import indy7
-    from indy7_mpc_tpu.mpc import run_mpc, run_sampled_mpc
+    from indy7_mpc.dynamics import ee_pos
+    from indy7_mpc.models import indy7
+    from indy7_mpc.mpc import run_mpc, run_sampled_mpc
 
     model = indy7(dtype=jnp.float32)
     cost_cfg = CostConfig()

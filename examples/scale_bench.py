@@ -2,16 +2,17 @@
 """Lane-scaling benchmark: batched SQP throughput vs batch size.
 
 Covers the BASELINE.json scale configs (64 / 256 / 1024 / 4096 rollouts
-on a single chip) with per-lane wrench hypotheses and warm-started
-solves.  The reference tops out at a compile-time template of B=256
-(gato_controller.py:53-63); here B is a runtime axis.
+on one GPU) with per-lane wrench hypotheses and warm-started solves, on
+the production solver solvers/select.py picks.  The reference tops out
+at a compile-time template of B=256 (gato_controller.py:53-63); here B
+is a runtime axis.
 
 Usage: python examples/scale_bench.py [N] [iters] [--mesh]
 
 --mesh runs the SAME sweep through the lane-mesh sharded production path
-(parallel.make_sharded_batch_solve backend="pallas": the fused kernel
-shard_mapped over a 1-D mesh of every visible device) — the deployed
-multi-chip configuration, exercised even on a single chip.
+(parallel.make_sharded_batch_solve: the production solver over a 1-D
+mesh of every visible device).  Needs a
+GPU; the device is printed on the first line.
 """
 import json
 import os
@@ -26,13 +27,15 @@ import numpy as np
 
 
 def main():
-    from indy7_mpc_tpu.utils.cache import enable_cache
+    from indy7_mpc.utils.cache import enable_cache
+    from indy7_mpc.utils.device import gpu_line
 
+    print(json.dumps({"device": gpu_line()}))
     enable_cache()
-    from indy7_mpc_tpu.config import CostConfig, SampleConfig, SQPConfig
-    from indy7_mpc_tpu.models import indy7
-    from indy7_mpc_tpu.mpc.sampled import init_wrench_batch
-    from indy7_mpc_tpu.solvers import sqp_pallas
+    from indy7_mpc.config import CostConfig, SampleConfig, SQPConfig
+    from indy7_mpc.models import indy7
+    from indy7_mpc.mpc.sampled import init_wrench_batch
+    from indy7_mpc.solvers.select import default_batch_solve_fn
 
     argv = [a for a in sys.argv[1:] if not a.startswith("--")]
     use_mesh = "--mesh" in sys.argv[1:]
@@ -46,14 +49,13 @@ def main():
 
     mesh = None
     if use_mesh:
-        from indy7_mpc_tpu.parallel import (
+        from indy7_mpc.parallel import (
             make_lane_mesh, make_sharded_batch_solve,
         )
 
         mesh = make_lane_mesh()
         print(
-            json.dumps({"mesh_devices": len(mesh.devices.flat),
-                        "backend": "pallas-shard_map"}),
+            json.dumps({"mesh_devices": len(mesh.devices.flat)}),
         )
 
     results = []
@@ -69,24 +71,19 @@ def main():
 
         if use_mesh:
             f = make_sharded_batch_solve(
-                model, cost_cfg, sqp_cfg, dt, mesh, backend="pallas"
+                model, cost_cfg, sqp_cfg, dt, mesh
             )
             # Commit inputs to the mesh ONCE (the deployed steady state:
             # warm starts/hypotheses live sharded on device between
             # ticks).  Passing uncommitted arrays into in_shardings
             # forces a reshard copy per call — measured 20x at B=4096.
-            from indy7_mpc_tpu.parallel import shard_lanes
+            from indy7_mpc.parallel import shard_lanes
 
             xs, goals, X, U, w = shard_lanes(
                 mesh, (xs, goals, X, U, w)
             )
         else:
-            f = jax.jit(
-                lambda xs, g, X, U, w: sqp_pallas.batch_solve(
-                    model, cost_cfg, sqp_cfg, dt, xs, g, X, U,
-                    wrench_world_batch=w,
-                )
-            )
+            f = jax.jit(default_batch_solve_fn(model, cost_cfg, sqp_cfg, dt))
         r = f(xs, goals, X, U, w)
         jax.block_until_ready(r.X)
         reps = max(5, 2000 // max(B // 64, 1))

@@ -1,4 +1,4 @@
-// C API for ctypes bindings (indy7_mpc_tpu/sim/native.py).
+// C API for ctypes bindings (indy7_mpc/sim/native.py).
 //
 // pybind11 is not available on this image (see repo docs); the framework
 // binds the native plant through a minimal extern-C surface instead.

@@ -3,7 +3,7 @@
 // Native ground-truth plant physics for the framework's external-plant
 // mode — the first-class equivalent of the reference's MuJoCo C++ sim
 // node (/root/reference/src/sim/sim/sim_node.cpp).  Same algorithms as
-// the JAX layer (indy7_mpc_tpu/dynamics, ops/lane_rbd.py): local-frame
+// the JAX layer (indy7_mpc/dynamics, ops/lane_rbd.py): local-frame
 // RNEA, CRBA, LDL^T solve, RK4 with the reference's averaged-velocity
 // position update (src/utils.py:3-18), and the world-wrench-about-origin
 // EE force semantics (src/gato_mpc_batch_sample.py:151-161).
@@ -88,7 +88,7 @@ void apply_joint_limits(const Model& m, State& x,
 
 // Seeded inertial-parameter error: per-link mass and inertia scaled by
 // independent uniform factors in [1-pct, 1+pct].  splitmix64-based and
-// bit-identical to indy7_mpc_tpu/sim/plant.py perturbation_scales, so a
+// bit-identical to indy7_mpc/sim/plant.py perturbation_scales, so a
 // (seed, pct) pair names the same perturbed robot in both engines.
 void perturb_model(Model& m, double pct, unsigned long long seed);
 

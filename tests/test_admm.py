@@ -2,7 +2,7 @@
 
 The reference's CPU path solves its KKT systems with OSQP — ADMM on a
 sparse CSC system (/root/reference/src/osqp_solver.py:39-41, 137-143).
-ops/admm.py is that algorithm TPU-native on the structured blocks; it must
+ops/admm.py is that algorithm on the structured blocks; it must
 agree with the exact backends to solver tolerance and plug into the SQP
 outer loop as qp_backend="admm".
 """
@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.config import CostConfig
-from indy7_mpc_tpu.ops import admm, dense_kkt, kkt, riccati
+from indy7_mpc.config import CostConfig
+from indy7_mpc.ops import admm, dense_kkt, kkt, riccati
 
 from test_riccati import random_blocks
 
@@ -105,8 +105,8 @@ def test_sqp_with_admm_backend_matches_riccati(model64, rng):
     """Full SQP solve with the ADMM backend on the real robot: accepted
     steps and final merit within the inexact-QP slack of the Riccati
     backend; iteration stats populate (OSQP parity)."""
-    from indy7_mpc_tpu.config import SQPConfig
-    from indy7_mpc_tpu.solvers import sqp as sqp_mod
+    from indy7_mpc.config import SQPConfig
+    from indy7_mpc.solvers import sqp as sqp_mod
 
     m = model64
     N, dt = 8, 0.01
@@ -143,8 +143,8 @@ def test_sqp_admm_state_warm_start_reduces_iterations(model64, rng):
     (OSQP's object-reuse warm start, osqp_solver.py:137-143): re-solving
     a slightly-moved problem from the returned state must cost fewer
     ADMM iterations than a cold start, and reach the same solution."""
-    from indy7_mpc_tpu.config import SQPConfig
-    from indy7_mpc_tpu.solvers import sqp as sqp_mod
+    from indy7_mpc.config import SQPConfig
+    from indy7_mpc.solvers import sqp as sqp_mod
 
     m = model64
     N, dt = 6, 0.01

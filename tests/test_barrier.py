@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from indy7_mpc_tpu.config import CostConfig, SQPConfig
-from indy7_mpc_tpu.ops import kkt
+from indy7_mpc.config import CostConfig, SQPConfig
+from indy7_mpc.ops import kkt
 
 
 def test_barrier_terms_zero_inside_band(model64):
@@ -74,8 +74,8 @@ def test_solver_respects_barrier(model64):
     """A goal reachable only by swinging joint 0 far: with the barrier the
     solved trajectory stays inside the position limits; without it the
     warm-started solve runs past them."""
-    from indy7_mpc_tpu.dynamics import ee_pos
-    from indy7_mpc_tpu.solvers import sqp as sqp_mod
+    from indy7_mpc.dynamics import ee_pos
+    from indy7_mpc.solvers import sqp as sqp_mod
 
     m = model64
     N, dt = 6, 0.01

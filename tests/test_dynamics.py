@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.dynamics import (
+from indy7_mpc.dynamics import (
     crba,
     ee_pos,
     ee_pos_jacobian,
@@ -26,7 +26,7 @@ from indy7_mpc_tpu.dynamics import (
     rnea,
     world_wrench_to_ee_joint,
 )
-from indy7_mpc_tpu.models import INDY7_URDF, indy7, parse_urdf
+from indy7_mpc.models import INDY7_URDF, indy7, parse_urdf
 
 Q = jnp.array([0.3, -0.5, 0.7, 0.2, -0.4, 0.6])
 V = jnp.array([0.1, 0.2, -0.3, 0.05, 0.15, -0.25])
@@ -199,8 +199,8 @@ def test_aba_matches_crba_forward_dynamics(model64):
     """ABA (O(n) articulated-body recursion, the reference's pin.aba) must
     equal the CRBA + Cholesky forward dynamics to machine precision,
     with and without gravity and an EE wrench."""
-    from indy7_mpc_tpu.dynamics.aba import forward_dynamics_aba
-    from indy7_mpc_tpu.dynamics.rnea import (
+    from indy7_mpc.dynamics.aba import forward_dynamics_aba
+    from indy7_mpc.dynamics.rnea import (
         forward_dynamics,
         world_wrench_to_ee_joint,
     )
@@ -231,7 +231,7 @@ def test_aba_matches_crba_forward_dynamics(model64):
 
 def test_aba_jit_and_grad(model64):
     """ABA must trace under jit and differentiate (it feeds linearization)."""
-    from indy7_mpc_tpu.dynamics.aba import forward_dynamics_aba
+    from indy7_mpc.dynamics.aba import forward_dynamics_aba
 
     m = model64
     q = jnp.full(6, 0.3)

@@ -2,21 +2,21 @@
 
 These run WITHOUT jit: the lane engine's huge unrolled graphs hit XLA:CPU
 superlinear compile times, but eager execution at small L is fast and
-exact.  On TPU the same code runs inside the fused Pallas kernel
-(tests/test_pallas_kernel.py).
+exact.  The same code is the engine of the lane-major solver
+(solvers/sqp_lane.py).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from indy7_mpc_tpu.dynamics import (
+from indy7_mpc.dynamics import (
     ee_pos,
     ee_pos_jacobian,
     forward_dynamics,
     world_wrench_to_ee_joint,
 )
-from indy7_mpc_tpu.ops import lane_rbd as LR
-from indy7_mpc_tpu.sim.plant import plant_step
+from indy7_mpc.ops import lane_rbd as LR
+from indy7_mpc.sim.plant import plant_step
 
 
 def _data(rng, L=9):
@@ -66,17 +66,6 @@ def test_lane_engine_matches_generic(model64, rng):
     np.testing.assert_allclose(np.asarray(r), np.asarray(r_ref.T), atol=1e-11)
 
 
-def test_fast_sqrt_accuracy():
-    x = jnp.asarray(
-        np.concatenate([[0.0], np.logspace(-6, 6, 2001)]), jnp.float32
-    )
-    s = LR.fast_sqrt(x)
-    ref = np.sqrt(np.asarray(x, np.float64))
-    rel = np.abs(np.asarray(s, np.float64) - ref) / (ref + 1e-30)
-    assert rel[1:].max() < 5e-6, rel[1:].max()
-    assert float(s[0]) == 0.0
-
-
 def test_sincos_accuracy():
     x = jnp.asarray(np.linspace(-6.5, 6.5, 20001), jnp.float32)
     s, c = LR.sincos(x)
@@ -86,7 +75,7 @@ def test_sincos_accuracy():
 
 
 def test_sincos_jvp_correct():
-    """d sin = cos dx: the magic-rounding must be opaque to autodiff."""
+    """d sin = cos dx through the lane engine's sincos."""
     x = jnp.asarray(np.linspace(-6.0, 6.0, 101), jnp.float32)
     t = jnp.ones_like(x)
     (_, _), (ds, dc) = jax.jvp(LR.sincos, (x,), (t,))

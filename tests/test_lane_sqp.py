@@ -1,14 +1,14 @@
 """Lane-major SQP path (ops/lane_sqp + solvers/sqp_lane) vs the readable
 oracle (ops/kkt + ops/riccati + solvers/sqp).
 
-The lane-major engine is the XLA production layout (and the math the
-fused Pallas kernel re-uses verbatim); this pins it to the generic layer:
+The lane-major engine is the GPU production solver; this pins it to the
+generic layer:
   * QP block construction matches build_qp_gn per lane;
   * the unrolled Riccati sweep matches ops/riccati.solve;
   * the full batched solve matches solvers/sqp.batch_solve, including
     line-search alpha choices and rho evolution.
-In f64 both paths use exact transcendentals, so agreement is ~1e-12;
-f32 checks the fast sincos/sqrt substitutions stay within solver noise.
+In f64 agreement is ~1e-12; f32 checks the two float32 paths stay within
+solver noise of each other.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,11 +16,11 @@ import pytest
 
 pytestmark = pytest.mark.slow  # f64 parity sweep: heavy CPU compiles (see pytest.ini)
 
-from indy7_mpc_tpu.config import CostConfig, SQPConfig
-from indy7_mpc_tpu.models import indy7
-from indy7_mpc_tpu.ops import kkt, lane_rbd as LR, lane_sqp as LS, riccati
-from indy7_mpc_tpu.solvers import sqp as sqp_ref
-from indy7_mpc_tpu.solvers import sqp_lane
+from indy7_mpc.config import CostConfig, SQPConfig
+from indy7_mpc.models import indy7
+from indy7_mpc.ops import kkt, lane_rbd as LR, lane_sqp as LS, riccati
+from indy7_mpc.solvers import sqp as sqp_ref
+from indy7_mpc.solvers import sqp_lane
 
 
 def _problem(dtype, B=6, N=8, seed=5):

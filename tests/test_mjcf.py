@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.models import indy7_mjcf, INDY7_MJCF, mjcf_meta
+from indy7_mpc.models import indy7_mjcf, INDY7_MJCF, mjcf_meta
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +41,7 @@ def test_mjcf_parses_chain_and_limits(mj64):
 def test_mjcf_kinematics_match_urdf(model64, mj64):
     """FK through the MJCF body tree must reproduce the URDF chain to the
     file's quaternion precision (6 printed digits -> ~1e-6 rad)."""
-    from indy7_mpc_tpu.dynamics import ee_pos, joint_frames
+    from indy7_mpc.dynamics import ee_pos, joint_frames
 
     rng = np.random.default_rng(2)
     for _ in range(5):
@@ -73,7 +73,7 @@ def test_mjcf_inertials_match_urdf(model64, mj64):
 
 def test_mjcf_dynamics_match_urdf(model64, mj64):
     """Forward dynamics through either description agree (same robot)."""
-    from indy7_mpc_tpu.dynamics import forward_dynamics
+    from indy7_mpc.dynamics import forward_dynamics
 
     rng = np.random.default_rng(4)
     q = jnp.asarray(rng.normal(size=6) * 0.7)
@@ -97,11 +97,11 @@ def test_mjcf_meta_sensor_noise():
 def test_closed_loop_urdf_controller_mjcf_plant(model32):
     """Controller on the URDF model, plant on the MJCF model — the
     reference's exact model-source split — must still hold station."""
-    from indy7_mpc_tpu.config import (
+    from indy7_mpc.config import (
         CostConfig, MPCConfig, SampleConfig, SQPConfig,
     )
-    from indy7_mpc_tpu.dynamics import ee_pos
-    from indy7_mpc_tpu.mpc.sampled import run_sampled_mpc
+    from indy7_mpc.dynamics import ee_pos
+    from indy7_mpc.mpc.sampled import run_sampled_mpc
 
     model = model32
     plant = indy7_mjcf(dtype=jnp.float32)

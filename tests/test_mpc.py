@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.config import CostConfig, MPCConfig, SampleConfig, SQPConfig
-from indy7_mpc_tpu.dynamics import ee_pos
-from indy7_mpc_tpu.mpc import (
+from indy7_mpc.config import CostConfig, MPCConfig, SampleConfig, SQPConfig
+from indy7_mpc.dynamics import ee_pos
+from indy7_mpc.mpc import (
     reference,
     run_mpc,
     run_sampled_mpc,

@@ -6,7 +6,7 @@ C++ model in lockstep with the embedded Python parameters).
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.sim import native
+from indy7_mpc.sim import native
 
 
 @pytest.fixture(autouse=True)
@@ -18,7 +18,7 @@ def _built(native_build):
 def jx():
     import jax.numpy as jnp
 
-    from indy7_mpc_tpu.models import indy7
+    from indy7_mpc.models import indy7
 
     return indy7(dtype=jnp.float64)
 
@@ -26,13 +26,13 @@ def jx():
 def test_native_matches_jax(jx, rng):
     import jax.numpy as jnp
 
-    from indy7_mpc_tpu.dynamics import (
+    from indy7_mpc.dynamics import (
         ee_pos,
         forward_dynamics,
         rnea,
         world_wrench_to_ee_joint,
     )
-    from indy7_mpc_tpu.sim.plant import plant_step
+    from indy7_mpc.sim.plant import plant_step
 
     import jax
 
@@ -79,7 +79,7 @@ def test_joint_limit_semantics(jx):
     saturation, exactly as documented (sim/plant.py apply_joint_limits)."""
     import jax.numpy as jnp
 
-    from indy7_mpc_tpu.sim.plant import apply_joint_limits
+    from indy7_mpc.sim.plant import apply_joint_limits
 
     hi = np.asarray(jx.q_upper)
     lo = np.asarray(jx.q_lower)
@@ -123,7 +123,7 @@ def test_joint_limit_parity_native(jx):
     engines."""
     import jax.numpy as jnp
 
-    from indy7_mpc_tpu.sim.plant import apply_joint_limits, plant_step
+    from indy7_mpc.sim.plant import apply_joint_limits, plant_step
 
     import jax
 

@@ -2,7 +2,7 @@
 
 The reference's CUDA solver solves its KKT systems by preconditioned CG
 on the dual (pcg_stats, gato_controller.py:98-99); ops/pcg.py is that
-algorithm TPU-native.  Both backends must agree with each other and with
+algorithm, batched.  Both backends must agree with each other and with
 the dense KKT factorization to solver tolerance.
 """
 import jax
@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.config import CostConfig
-from indy7_mpc_tpu.ops import dense_kkt, kkt, pcg, riccati
+from indy7_mpc.config import CostConfig
+from indy7_mpc.ops import dense_kkt, kkt, pcg, riccati
 
 from test_riccati import random_blocks
 
@@ -99,8 +99,8 @@ def test_sqp_with_pcg_backend_matches_riccati(model64, rng):
     final merit within the inexact-QP slack of the Riccati backend; the
     per-iteration pcg_stats populate (reference parity,
     gato_controller.py:98-99)."""
-    from indy7_mpc_tpu.config import SQPConfig
-    from indy7_mpc_tpu.solvers import sqp as sqp_mod
+    from indy7_mpc.config import SQPConfig
+    from indy7_mpc.solvers import sqp as sqp_mod
 
     m = model64
     N, dt = 8, 0.01

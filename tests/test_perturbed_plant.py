@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.config import (
+from indy7_mpc.config import (
     CostConfig,
     MPCConfig,
     PERTURBED_PLANT,
@@ -19,7 +19,7 @@ from indy7_mpc_tpu.config import (
     SampleConfig,
     SQPConfig,
 )
-from indy7_mpc_tpu.sim.plant import (
+from indy7_mpc.sim.plant import (
     perturb_model,
     perturbation_scales,
     plant_step,
@@ -59,7 +59,7 @@ def test_perturbed_model_differs_but_stays_physical(model64):
 def test_native_perturbed_step_parity(model64, native_build):
     """C++ perturb_model + friction RK4 must match the JAX plant exactly
     (shared splitmix64 draws; same friction law in every stage)."""
-    from indy7_mpc_tpu.sim import native
+    from indy7_mpc.sim import native
     pm = perturb_model(model64, CFG)
     xj = plant_step(
         pm, jnp.asarray(X0), jnp.asarray(U0), 0.01,
@@ -77,7 +77,7 @@ def test_native_perturbed_step_parity(model64, native_build):
 def test_friction_dissipates_energy(model64):
     """Unforced pendulum swing: with joint friction the mechanical energy
     must strictly decrease; without it RK4 conserves to ~1e-8."""
-    from indy7_mpc_tpu.dynamics import crba, joint_frames
+    from indy7_mpc.dynamics import crba, joint_frames
 
     m = model64
 
@@ -133,8 +133,8 @@ def test_closed_loop_tracks_under_model_mismatch(model32):
     This is the structural property the reference demonstrates by running
     against MuJoCo — tracking under dynamics the solver did not
     linearize."""
-    from indy7_mpc_tpu.dynamics import ee_pos
-    from indy7_mpc_tpu.mpc.sampled import run_sampled_mpc
+    from indy7_mpc.dynamics import ee_pos
+    from indy7_mpc.mpc.sampled import run_sampled_mpc
 
     model = model32
     n_steps = 120

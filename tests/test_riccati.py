@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.config import CostConfig
-from indy7_mpc_tpu.ops import kkt, riccati
+from indy7_mpc.config import CostConfig
+from indy7_mpc.ops import kkt, riccati
 
 
 def random_blocks(rng, N, nx, nu, rho, dtype=np.float64):
@@ -34,7 +34,7 @@ def random_blocks(rng, N, nx, nu, rho, dtype=np.float64):
 
 def dense_solve(blocks, xs, rho):
     """Dense KKT oracle (the package's numpy reference solver)."""
-    from indy7_mpc_tpu.ops import dense_kkt
+    from indy7_mpc.ops import dense_kkt
 
     return dense_kkt.solve(blocks, xs, rho)
 
@@ -95,7 +95,7 @@ def test_linearization_matches_finite_difference(model64):
     X = jnp.asarray(np.linspace(0.1, 0.4, 2 * 12).reshape(2, 12))
     U = jnp.asarray(np.full((1, 6), 0.5))
     A, B, c = jax.jit(lambda X, U: kkt.linearize_dynamics(m, X, U, dt))(X, U)
-    from indy7_mpc_tpu.dynamics import euler_step
+    from indy7_mpc.dynamics import euler_step
 
     x, u = X[0], U[0]
     eps = 1e-6

@@ -1,7 +1,7 @@
 """Horizon-parallel (associative-scan) Riccati vs the sequential sweep.
 
 ops/riccati_pscan.py recasts the backward recursion as a parallel scan
-(O(log N) depth) — the TPU answer to "sequence parallelism" over the
+(O(log N) depth) — the batched answer to "sequence parallelism" over the
 horizon (SURVEY.md section 5.7).  It must solve the identical QP.
 """
 import jax
@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.config import CostConfig
-from indy7_mpc_tpu.ops import kkt, riccati, riccati_pscan
+from indy7_mpc.config import CostConfig
+from indy7_mpc.ops import kkt, riccati, riccati_pscan
 
 from test_riccati import random_blocks
 
@@ -73,8 +73,8 @@ def test_pscan_batched_lanes_jit(rng):
 def test_sqp_pscan_backend_matches_riccati_backend(model64, rng):
     """The SQP outer loop must be backend-invariant between the sequential
     and parallel-scan exact solvers (identical QP, f64)."""
-    from indy7_mpc_tpu.config import SQPConfig
-    from indy7_mpc_tpu.solvers import sqp as sqp_mod
+    from indy7_mpc.config import SQPConfig
+    from indy7_mpc.solvers import sqp as sqp_mod
 
     m = model64
     N, dt = 8, 0.01

@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.config import CostConfig, MPCConfig, SampleConfig, SQPConfig
-from indy7_mpc_tpu.models import indy7
-from indy7_mpc_tpu.mpc import reference
-from indy7_mpc_tpu.runtime import (
+from indy7_mpc.config import CostConfig, MPCConfig, SampleConfig, SQPConfig
+from indy7_mpc.models import indy7
+from indy7_mpc.mpc import reference
+from indy7_mpc.runtime import (
     InProcessPlant,
     RunRecorder,
     SampledController,
@@ -42,7 +42,7 @@ def _controller(model, ref):
 
 
 def _hold_ref(model, q0, ticks):
-    from indy7_mpc_tpu.dynamics import ee_pos
+    from indy7_mpc.dynamics import ee_pos
 
     ee = np.asarray(ee_pos(model, jnp.asarray(q0, jnp.float32)))
     return np.tile(ee, (ticks, 1)).astype(np.float32)

@@ -9,16 +9,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from indy7_mpc_tpu.config import CostConfig, SampleConfig, SQPConfig
-from indy7_mpc_tpu.dynamics import ee_pos
-from indy7_mpc_tpu.mpc.sampled import init_wrench_batch, sampled_tick
-from indy7_mpc_tpu.parallel import (
+from indy7_mpc.config import CostConfig, SampleConfig, SQPConfig
+from indy7_mpc.dynamics import ee_pos
+from indy7_mpc.mpc.sampled import init_wrench_batch, sampled_tick
+from indy7_mpc.parallel import (
     make_lane_mesh,
     make_sharded_batch_solve,
     make_sharded_sampled_tick,
     shard_lanes,
 )
-from indy7_mpc_tpu.solvers import sqp as sqp_mod
+from indy7_mpc.solvers import sqp as sqp_mod
 
 
 def test_eight_virtual_devices():
@@ -148,9 +148,9 @@ def test_sharded_closed_loop_matches_single_device(model64):
     """The lane-sharded closed loop (make_sharded_sampled_loop) must
     reproduce run_sampled_mpc exactly (same seeds, same tick program —
     mpc/sampled.py make_loop_tick is shared)."""
-    from indy7_mpc_tpu.config import MPCConfig
-    from indy7_mpc_tpu.mpc.sampled import init_loop_carry, run_sampled_mpc
-    from indy7_mpc_tpu.parallel import make_sharded_sampled_loop
+    from indy7_mpc.config import MPCConfig
+    from indy7_mpc.mpc.sampled import init_loop_carry, run_sampled_mpc
+    from indy7_mpc.parallel import make_sharded_sampled_loop
 
     m = model64
     mpc_cfg = MPCConfig(N=6, dt=0.01)
@@ -196,9 +196,9 @@ def test_32k_lane_sweep_on_virtual_mesh(model32):
     (4,096 lanes per device) runs, stays finite, keeps the hypothesis
     batch lane-sharded across ticks, and picks a consensus lane whose
     wrench estimate is sane."""
-    from indy7_mpc_tpu.config import MPCConfig
-    from indy7_mpc_tpu.mpc.sampled import init_loop_carry
-    from indy7_mpc_tpu.parallel import LANE_AXIS, make_sharded_sampled_loop
+    from indy7_mpc.config import MPCConfig
+    from indy7_mpc.mpc.sampled import init_loop_carry
+    from indy7_mpc.parallel import LANE_AXIS, make_sharded_sampled_loop
 
     m = model32
     B = 32768

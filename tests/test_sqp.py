@@ -10,10 +10,10 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from indy7_mpc_tpu.config import CostConfig, SQPConfig
-from indy7_mpc_tpu.dynamics import ee_pos
-from indy7_mpc_tpu.ops import kkt
-from indy7_mpc_tpu.solvers import sqp as sqp_mod
+from indy7_mpc.config import CostConfig, SQPConfig
+from indy7_mpc.dynamics import ee_pos
+from indy7_mpc.ops import kkt
+from indy7_mpc.solvers import sqp as sqp_mod
 
 from test_riccati import dense_solve
 

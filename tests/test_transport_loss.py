@@ -119,7 +119,7 @@ def test_reset_roundtrip_native_plant(native_build):
     """kTagReset: drive the plant away from the initial pose, reset, and
     verify it returns there with zero velocity and HOLDS (command state
     cleared — 'R' semantics, sim_node.cpp:107-130, 288-291)."""
-    from indy7_mpc_tpu.runtime import UdpTransport
+    from indy7_mpc.runtime import UdpTransport
 
     proc = subprocess.Popen(
         [PLANT_BIN, "0.002", "5", "--ports", "7481", "7480"],
@@ -162,11 +162,11 @@ def test_loop_survives_loss_reorder_delay(model32, native_build, tmp_path):
     deadlock, recorded run finite."""
     import jax.numpy as jnp
 
-    from indy7_mpc_tpu.config import (
+    from indy7_mpc.config import (
         CostConfig, MPCConfig, SampleConfig, SQPConfig,
     )
-    from indy7_mpc_tpu.dynamics import ee_pos
-    from indy7_mpc_tpu.runtime import (
+    from indy7_mpc.dynamics import ee_pos
+    from indy7_mpc.runtime import (
         RunRecorder, SampledController, UdpTransport, run_control_loop,
     )
 
@@ -218,8 +218,8 @@ def test_loop_survives_loss_reorder_delay(model32, native_build, tmp_path):
 def test_watchdog_fires_on_blackout(model32):
     """Total blackout (nothing bound on the state port): the controller
     watchdog must raise within ~JOINT_STATE_TIMEOUT, not deadlock."""
-    from indy7_mpc_tpu.runtime import UdpTransport, run_control_loop
-    from indy7_mpc_tpu.runtime import controller as ctl_mod
+    from indy7_mpc.runtime import UdpTransport, run_control_loop
+    from indy7_mpc.runtime import controller as ctl_mod
 
     class _NoPlant(UdpTransport):
         pass

@@ -8,7 +8,7 @@ the comparison table of BASELINE.md (mean/p50/p95 tracking error, solve
 times, control period); optionally writes overlay plots.
 
 Works on both the reference's recorded runs (/root/reference/stats/*) and
-this framework's stats_tpu/ output — apples to apples.
+this framework's RunRecorder output — apples to apples.
 
 Usage:
   python tools/analyze_stats.py DIR [DIR ...] [--plot out.png]

@@ -3,7 +3,7 @@
 
 The reference's sim node renders the robot in a GLFW window while the
 closed loop runs (/root/reference/src/sim/sim/sim_node.cpp:33-76,
-350-365).  The TPU build's equivalent is headless-friendly: the native
+350-365).  This framework's equivalent is headless-friendly: the native
 plant duplicates its state packets to a mirror port
 (``plant_node --mirror 7470``) and this tool renders them live —
 a refreshing terminal dashboard (default) and/or a self-refreshing HTML
